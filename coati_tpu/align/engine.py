@@ -10,27 +10,25 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
+import os
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 
-import functools
-
-from coati_tpu.align.wavefront import gap_consts_array, wavefront
-from coati_tpu.constants import F32_LOWEST
+from coati_tpu import backend, compile_cache
+from coati_tpu.align.wavefront import (
+    dp_fill,
+    dp_fill_jit,
+    gap_consts_array,
+    traceback_ops_impl,
+)
 
 # persistent compilation cache: the wavefront scan compiles once per padded
-# shape; cache survives across CLI invocations
-if jax.config.jax_compilation_cache_dir is None:  # pragma: no branch
-    import os as _os
-
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.path.expanduser("~/.cache/coati_tpu_xla"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+# shape; the cache survives across CLI invocations
+compile_cache.configure()
 
 
 @dataclasses.dataclass
@@ -49,49 +47,6 @@ def _argmax_mdi_np(m, d, i):
 
 def _round_up(x: int, q: int) -> int:
     return ((x + q - 1) // q) * q
-
-
-# Below this many cells per kernel call the CPU backend is used: XLA CPU
-# compiles in <1s while a (possibly remote) TPU pays seconds-to-minutes of
-# init/compile latency that only amortizes over large batches. Overridable
-# via COATI_TPU_FORCE_PLATFORM=tpu|cpu.
-SMALL_CALL_CELLS = 1 << 24
-
-
-def _devices_for(cells: int) -> list:
-    """All local devices of the platform chosen for a call of `cells` size.
-
-    The engine round-robins chunks across every returned device (the
-    production multi-chip path: the workload is embarrassingly data-parallel
-    over pair chunks, so independent async dispatches per device scale
-    without collectives). COATI_TPU_MAX_DEVICES caps the fan-out."""
-    import os
-
-    force = os.environ.get("COATI_TPU_FORCE_PLATFORM", "")
-    # local_devices, not devices: under jax.distributed each process may
-    # only dispatch to its own chips (global devices are non-addressable)
-    if force == "cpu" or (not force and cells < SMALL_CALL_CELLS):
-        # touch only the CPU backend: initializing a (remote) TPU backend
-        # can cost seconds-to-minutes and is wasted on small calls
-        try:
-            devs = jax.local_devices(backend="cpu")
-        except RuntimeError:
-            devs = jax.local_devices()
-    else:
-        devs = jax.local_devices()
-        if devs[0].platform == "cpu":
-            try:
-                devs = jax.local_devices(backend="cpu")
-            except RuntimeError:
-                pass
-    cap = int(os.environ.get("COATI_TPU_MAX_DEVICES", "0"))
-    if cap > 0:
-        devs = devs[:cap]
-    return list(devs)
-
-
-def _device_for(cells: int):
-    return _devices_for(cells)[0]
 
 
 _native_strings_warned = False
@@ -152,134 +107,35 @@ def ops_to_strings(ops_fwd, score, a_strs, b_strs, k):
     return results
 
 
-import os as _os
-
-PALLAS_BC = int(_os.environ.get("COATI_TPU_PALLAS_BC", "32"))
-# diagonals per Pallas grid step (amortizes per-step overhead; padding
-# diagonals are discarded). Bit-identical for any value (test_pallas.py).
-# Measured on v5e r4 (tools/tune_kernel.py): du=16 ~= du=8 at C=512-1152
-# (7.7-7.8 G stacked), both ahead of du=12/15; du*bc*C above ~360 KB
-# fails to compile (the envelope clamp below).
-PALLAS_DU = int(_os.environ.get("COATI_TPU_PALLAS_DU", "16"))
-# pairs stacked per batch-row along the diagonal axis (0/1 disables)
-PALLAS_STACK_R = int(_os.environ.get("COATI_TPU_PALLAS_STACK_R", "8"))
-_DU_VMEM_SLOTS = 32 * 4 * 2816  # proven envelope: bc=32, C=2816, du=4
-
-
-def _du_for(C: int, bc: int, k: int = 1) -> int:
-    """Diagonals per grid step for slot width C and chunk width bc.
-
-    The slot budget was proven at k=1 (ring of 3 diagonal planes); k=3
-    carries a 4-plane ring (max(k,2)+1), so shave the budget by the same
-    ~25% rather than rely on the compile-probe fallback ladder alone."""
-    budget = _DU_VMEM_SLOTS if k <= 2 else _DU_VMEM_SLOTS * 3 // 4
-    du = max(1, min(PALLAS_DU, budget // (bc * C)))
-    # round down to a power of two: irregular du block shapes have crashed
-    # the TPU compile helper at large C (du=5 x C=15744, r5), and only
-    # power-of-two du values were ever measured/proven
-    return 1 << (du.bit_length() - 1)
-# scratch budget: (3*ring + 15 + 3) * bc * C * 4 bytes must fit VMEM
-PALLAS_MAX_C = 2816
 # descendants longer than this many slots route to the segmented two-pass
-# long-pair path (align/longseq.py): beyond it the full [Dtot, B, C] bp
-# stack grows past a few GB of HBM per chunk (~2*C^2*bc bytes; ~2.2 GB at
-# 16.5k slots with bc=4) and the one-pass kernel stops being a win
-LONG_PAIR_SLOTS = int(_os.environ.get("COATI_TPU_LONG_SLOTS", "16512"))
+# long-pair path (align/longseq.py): it bounds the full [Dtot, B, C] bp
+# stack of the one-pass path (~2*C^2 bytes per pair; ~0.5 GB at 16.5k
+# slots). A memory bound only: the speed crossover between the two paths
+# is not measured on the card (ROADMAP S4).
+LONG_PAIR_SLOTS = int(os.environ.get("COATI_TPU_LONG_SLOTS", "16512"))
 
 
-def _pallas_bc_for(C: int, want_bp: bool) -> int | None:
-    """Chunk width (batch rows per kernel instance) for slot count C.
-
-    Wide chunks amortize per-step grid overhead; long sequences need
-    narrow chunks to bound VMEM scratch (~21 planes x bc x C x 4 B) and,
-    with backpointers, the [Dtot, B, C] uint8 HBM stream (~2*C*bc*C B per
-    chunk). Returns None when the pair is too long for the kernel and the
-    XLA scan fallback must be used."""
-    if C <= PALLAS_MAX_C:
-        return PALLAS_BC
-    if C <= (11264 if want_bp else 22528):
-        return 8
-    if want_bp and C <= 16512:
-        # 11k-16.5k slots: one-pass kernel at bc=4 still beats the
-        # segmented two-pass path ~2x for full batches; bp stream
-        # ~2*C^2*bc B <= 2.2 GB. Beyond this the kernel fails to compile
-        # (measured r5: bc=1 at 29.5k slots fails for du 8 and 4) and the
-        # folded segmented path is faster anyway.
-        return 4
-    return None
-
-
-def fused_align_ops_impl(aseq, bseq, la, lb, table32, gc, *, k, use_pallas,
-                         code_cols=tuple(range(15)), bc=PALLAS_BC,
-                         du=1, stack_R=1):
+def fused_align_ops_impl(aseq, bseq, la, lb, table32, gc, *, k, impl):
     """Fused DP fill + on-device traceback — the per-device alignment step.
 
     Shared by the single-device jit (below) and the shard_map mesh path
-    (parallel/mesh.py), so every execution mode runs the identical
-    Pallas/XLA kernel.
-
-    stack_R > 1 (Pallas only): R pairs stacked per batch-row along the
-    diagonal axis (kernels/wavefront_pallas.wavefront_pallas_stacked) —
-    ~2x fewer wasted slot-cells; bit-identical results."""
-    from coati_tpu.align.wavefront import (
-        traceback_ops_impl,
-        wavefront_impl,
-    )
-
-    if use_pallas and stack_R > 1:
-        from coati_tpu.kernels.wavefront_pallas import (
-            wavefront_pallas_stacked,
-        )
-
-        corners, bp, d_base, row_idx, _P = wavefront_pallas_stacked(
-            aseq, bseq, la, lb, table32, gc, k=k, R=stack_R, bc=bc,
-            code_cols=code_cols, du=du,
-        )
-        from coati_tpu.kernels.wavefront_pallas import (
-            rebase_stacked_bp,
-            stacked_period,
-        )
-
-        # P recomputed from the STATIC shapes (the jitted kernel's return
-        # value is a tracer under the outer jit; slice bounds must be
-        # Python ints)
-        NAp, NBp = aseq.shape[1], bseq.shape[1]
-        Cp = ((NBp + k + 127) // 128) * 128
-        P = stacked_period(NAp, NBp, Cp, k, du)
-        # trace-time guard: the kernel's own slot rounding must agree with
-        # the P recomputed here, or rebase_stacked_bp slices wrong windows
-        assert bp.shape[0] == (stack_R + 1) * P, (bp.shape, stack_R, P)
-        bp2 = rebase_stacked_bp(bp, P, NAp, NBp, k, stack_R)
-        ops, (_, score) = traceback_ops_impl(bp2, corners, la, lb, k=k)
-        return ops, score
-    if use_pallas:
-        from coati_tpu.kernels.wavefront_pallas import wavefront_pallas
-
-        corners, bp = wavefront_pallas(
-            aseq, bseq, la, lb, table32, gc, k=k, bc=bc,
-            code_cols=code_cols, du=du,
-        )
-    else:
-        corners, bp = wavefront_impl(
-            aseq, bseq, la, lb, table32, gc,
-            k=k, semiring="tropical", mode="viterbi",
-        )
+    (parallel/mesh.py), so every execution mode runs the identical step;
+    `impl` ('xla' or 'cuda', from backend.dp_impl) picks the DP fill."""
+    corners, bp = dp_fill(aseq, bseq, la, lb, table32, gc, k=k,
+                          mode="viterbi", impl=impl)
     ops, (_, score) = traceback_ops_impl(bp, corners, la, lb, k=k)
     return ops, score
 
 
-# A single executable per chunk matters when the host<->device link has
-# high latency: the packed bp stack never leaves the device, and only the
-# op sequences + scores are fetched.
+# One executable per chunk: the packed bp stack never leaves the device,
+# and only the op sequences + scores are fetched.
 _align_step_jit = functools.partial(
-    jax.jit,
-    static_argnames=("k", "use_pallas", "code_cols", "bc", "du", "stack_R"),
+    jax.jit, static_argnames=("k", "impl"),
 )(fused_align_ops_impl)
 
 
 def fused_align_ops_packed_impl(aseq, bseq, la, lb, table32, gc, *, k,
-                                use_pallas, code_cols=tuple(range(15)),
-                                bc=PALLAS_BC, du=1, stack_R=1):
+                                impl):
     """fused_align_ops_impl with a host-link-lean output contract.
 
     Inputs may arrive narrow (uint16 ancestor / uint8 descendant codes) —
@@ -293,8 +149,7 @@ def fused_align_ops_packed_impl(aseq, bseq, la, lb, table32, gc, *, k,
     la = la.astype(jnp.int32)
     lb = lb.astype(jnp.int32)
     ops, score = fused_align_ops_impl(
-        aseq, bseq, la, lb, table32, gc, k=k, use_pallas=use_pallas,
-        code_cols=code_cols, bc=bc, du=du, stack_R=stack_R,
+        aseq, bseq, la, lb, table32, gc, k=k, impl=impl,
     )
     S = ops.shape[0]
     S4 = -(-S // 4) * 4
@@ -305,8 +160,7 @@ def fused_align_ops_packed_impl(aseq, bseq, la, lb, table32, gc, *, k,
 
 
 _align_step_packed_jit = functools.partial(
-    jax.jit,
-    static_argnames=("k", "use_pallas", "code_cols", "bc", "du", "stack_R"),
+    jax.jit, static_argnames=("k", "impl"),
 )(fused_align_ops_packed_impl)
 
 
@@ -319,12 +173,11 @@ RLE_RUNS = 32
 # walk-length bound exceeds this could hold a single run that silently
 # wraps, so such chunks are forced onto the full packed-stream fetch.
 RLE_MAX_STEPS = 65535
-_ASYNC_FETCH = _os.environ.get("COATI_TPU_ASYNC_FETCH", "1") != "0"
+_ASYNC_FETCH = os.environ.get("COATI_TPU_ASYNC_FETCH", "1") != "0"
 
 
-def fused_align_ops_rle_impl(aseq, bseq, la, lb, table32, gc, *, k,
-                             use_pallas, code_cols=tuple(range(15)),
-                             bc=32, du=1, stack_R=1, nr=32):
+def fused_align_ops_rle_impl(aseq, bseq, la, lb, table32, gc, *, k, impl,
+                             nr=32):
     """fused_align_ops_packed_impl plus a run-length-encoded result blob.
 
     Alignments are mostly long match runs, so the op stream compresses to
@@ -344,8 +197,7 @@ def fused_align_ops_rle_impl(aseq, bseq, la, lb, table32, gc, *, k,
     """
     assert nr % 4 == 0
     packed, score = fused_align_ops_packed_impl(
-        aseq, bseq, la, lb, table32, gc, k=k, use_pallas=use_pallas,
-        code_cols=code_cols, bc=bc, du=du, stack_R=stack_R,
+        aseq, bseq, la, lb, table32, gc, k=k, impl=impl,
     )
     # re-derive the op stream in packed (uint8, -1 -> 3) space, restoring
     # step order (step t lives in packed row t//4 at bit position t%4)
@@ -395,9 +247,7 @@ def fused_align_ops_rle_impl(aseq, bseq, la, lb, table32, gc, *, k,
 
 
 _align_step_rle_jit = functools.partial(
-    jax.jit,
-    static_argnames=("k", "use_pallas", "code_cols", "bc", "du", "stack_R",
-                     "nr"),
+    jax.jit, static_argnames=("k", "impl", "nr"),
 )(fused_align_ops_rle_impl)
 
 
@@ -484,25 +334,12 @@ def _ancestor_dtype(table32) -> type:
     return np.int32
 
 
-def _code_cols_for(bseq) -> tuple:
-    """Emission code-set for a descendant batch: 3x fewer emission planes
-    for plain ACGT data. Two cheap max-reductions instead of np.unique
-    (which sorts — it alone cost ~0.8 s/pass on the 10k-pair bench)."""
-    mx = int(bseq.max()) if bseq.size else 0
-    if mx <= 3:
-        return (0, 1, 2, 3)
-    if mx == 14 and not bool(((bseq > 3) & (bseq < 14)).any()):
-        return (0, 1, 2, 3, 14)
-    return tuple(range(15))
-
-
 def _fetch_rle_chunk(launched, n_real, ca, cb, k):
     """Fetch + decode one RLE-launched chunk into AlignResults.
 
     `launched` is the (packed_ops, nsteps, blob) handle triple from
-    _align_step(fetch=False, rle=True). Shared by the batch engine and
-    tools/profile_batch.py so the profiler always measures the engine's
-    real fetch path. Pairs whose run count exceeded the blob cap are
+    _align_step(fetch=False, rle=True). Pairs whose run count exceeded the
+    blob cap are
     rebuilt individually from the full packed op stream; the rest keep the
     RLE fast path (the stream transfer is paid once per chunk, decode is
     per-pair)."""
@@ -540,32 +377,15 @@ def _fetch_packed(packed_d, nsteps, score_d, n_real):
     return ops, score
 
 
-_compile_probe_warned = set()
-
 # when set to a list (bench telemetry), every launched chunk appends its
-# static kernel config — see the CHUNK_TRACE block in _align_step
+# static step config — enough to replay one device-identical step on
+# synthetic data
 CHUNK_TRACE: list | None = None
 
 
-def _is_compile_failure(exc) -> bool:
-    """True only for compile-stage failures (Mosaic lowering errors, VMEM
-    budget overflow, window-too-large), which are safe to retry with
-    smaller kernel knobs. Runtime faults must surface unretried — a bare
-    "INTERNAL" runtime error used to match here, silently rerouting real
-    bugs down the config ladder (VERDICT r3 weak #7)."""
-    s = f"{type(exc).__name__}: {exc}"
-    needles = (
-        "compile",            # "failed to compile", "compilation", ...
-        "Mosaic",             # Mosaic lowering/verification stage
-        "RESOURCE_EXHAUSTED", # VMEM/scoped-memory budget at compile time
-        "vmem", "VMEM",
-    )
-    return any(n in s for n in needles)
-
-
 def _align_step(aseq, bseq, la, lb, table32, gc, k, dev, fetch=True,
-                code_cols=None, rle=False):
-    """Run one fused chunk.
+                rle=False):
+    """Run one fused chunk on `dev`.
 
     fetch=True returns (ops [steps,B] int8 walked-backward, score [B]) as
     numpy; fetch=False returns the raw device handles
@@ -574,127 +394,38 @@ def _align_step(aseq, bseq, la, lb, table32, gc, k, dev, fetch=True,
     (packed_ops, nsteps, blob): `blob` is the single-transfer RLE result
     matrix (see fused_align_ops_rle_impl) and packed_ops is fetched only
     for overflow pairs. table32/gc may be numpy or already-device arrays
-    (device-resident reuse avoids a re-transfer per chunk).
-
-    The hand-tuned (bc, du, stack_R) envelopes can shift with new shapes or
-    toolchains; instead of hard-failing, a Pallas compile failure probes
-    progressively smaller knobs (halve du, drop stacking, halve bc) down to
-    the XLA fallback, logging once per shape."""
-    B0, NA = aseq.shape
-    NB = bseq.shape[1]
-    C = ((NB + k + 127) // 128) * 128
-    bc0 = _pallas_bc_for(C, want_bp=True)
-    use_pallas0 = (
-        getattr(dev, "platform", "cpu") not in ("cpu",) and bc0 is not None
-    )
-
-    def attempt(use_pallas, bc, du, stack_R):
-        a, b, lva, lvb = aseq, bseq, la, lb
-        if stack_R > 1:
-            rows = _round_up(-(-B0 // stack_R), bc)
-            pad_b = stack_R * rows - B0
-        else:
-            pad_b = (-B0) % bc if use_pallas else 0
-        if pad_b:
-            a = np.concatenate([a, np.zeros((pad_b, NA), a.dtype)])
-            b = np.concatenate([b, np.zeros((pad_b, NB), b.dtype)])
-            lva = np.concatenate([lva, np.full(pad_b, 3 * k, np.int32)])
-            lvb = np.concatenate([lvb, np.full(pad_b, k, np.int32)])
-        cc = code_cols if code_cols is not None else _code_cols_for(b)
-        # narrow input dtypes: uint8/uint16 ancestor codes (by stacked-table
-        # row count; the single-model 183-row table fits uint8) and uint8
-        # descendant nt16 codes. copy=False: callers that padded straight
-        # into the narrow dtype (_ancestor_dtype) skip the extra pass.
-        if isinstance(a, np.ndarray) and table32.shape[0] <= 65535:
-            a = a.astype(
-                np.uint8 if table32.shape[0] <= 255 else np.uint16,
-                copy=False,
-            )
-        if isinstance(b, np.ndarray):
-            b = b.astype(np.uint8, copy=False)
-        step_jit = _align_step_rle_jit if rle else _align_step_packed_jit
-        extra = {"nr": RLE_RUNS} if rle else {}
-        if CHUNK_TRACE is not None:
-            # telemetry (bench device-time estimator): the static config of
-            # this launched chunk — enough to replay one device-identical
-            # step on synthetic data
-            CHUNK_TRACE.append({
-                "B": int(a.shape[0]), "NA": int(a.shape[1]),
-                "NB": int(b.shape[1]), "k": int(k),
-                "use_pallas": bool(use_pallas), "cc": tuple(cc),
-                "bc": int(bc if use_pallas else PALLAS_BC),
-                "du": int(du if use_pallas else 1),
-                "stack_R": int(stack_R), "rle": bool(rle),
-            })
-        return step_jit(
-            jnp.asarray(a), jnp.asarray(b), jnp.asarray(lva),
-            jnp.asarray(lvb), jnp.asarray(table32), jnp.asarray(gc),
-            k=k, use_pallas=use_pallas, code_cols=cc,
-            bc=bc if use_pallas else PALLAS_BC,
-            du=du if use_pallas else 1, stack_R=stack_R, **extra,
+    (device-resident reuse avoids a re-transfer per chunk)."""
+    B0 = aseq.shape[0]
+    impl = backend.dp_impl(dev.platform, "viterbi")
+    # narrow input dtypes: uint8/uint16 ancestor codes (by stacked-table
+    # row count; the single-model 183-row table fits uint8) and uint8
+    # descendant nt16 codes. copy=False: callers that padded straight
+    # into the narrow dtype (_ancestor_dtype) skip the extra pass.
+    if isinstance(aseq, np.ndarray) and table32.shape[0] <= 65535:
+        aseq = aseq.astype(
+            np.uint8 if table32.shape[0] <= 255 else np.uint16, copy=False,
         )
-
-    # candidate ladder: tuned config first, then progressively smaller.
-    # stack_R: the largest power-of-two R whose dummy-pair padding stays
-    # marginal (R*roundup(ceil(B/R), bc) - B small) — a poorly chosen R
-    # can cost more in padded rows than stacking saves in slot-cells
-    stack_R0 = 1
-    if use_pallas0 and PALLAS_STACK_R > 1:
-        for r in (8, 4, 2):
-            if r > PALLAS_STACK_R:
-                continue
-            rows = _round_up(-(-B0 // r), bc0)
-            pad = r * rows - B0
-            # r <= B0//2 or pad == 0: at the bc<8 tiers a lone-pair chunk
-            # could otherwise "stack" with a dummy pair — a strictly
-            # longer sweep and a bigger bp stream than not stacking
-            if (rows >= bc0 and pad <= max(bc0, int(0.15 * B0))
-                    and (r <= B0 // 2 or pad == 0)):
-                stack_R0 = r
-                break
-    ladder = []
-    if use_pallas0:
-        du0 = _du_for(C, bc0, k)
-        ladder.append((True, bc0, du0, stack_R0))
-        if du0 > 1:
-            ladder.append((True, bc0, max(1, du0 // 2), stack_R0))
-        if stack_R0 > 1:
-            ladder.append((True, bc0, max(1, du0 // 2), 1))
-        if bc0 > 8:
-            ladder.append((True, max(8, bc0 // 2), 1, 1))
-    ladder.append((False, PALLAS_BC, 1, 1))
-
-    packed = aux = None
-    for li, (up, bc_t, du_t, sr_t) in enumerate(ladder):
-        tlen = len(CHUNK_TRACE) if CHUNK_TRACE is not None else 0
-        try:
-            packed, aux = attempt(up, bc_t, du_t, sr_t)
-            break
-        except Exception as exc:
-            # drop the failed attempt's telemetry record (the bench's
-            # device-time estimator replays traced configs verbatim)
-            if CHUNK_TRACE is not None:
-                del CHUNK_TRACE[tlen:]
-            last = li == len(ladder) - 1
-            if last or not _is_compile_failure(exc):
-                raise
-            key = (NA, NB, k, up, bc_t, du_t, sr_t)
-            if key not in _compile_probe_warned:
-                _compile_probe_warned.add(key)
-                import logging
-
-                logging.getLogger(__name__).warning(
-                    "pallas config %s failed to compile for shape "
-                    "NA=%d NB=%d k=%d; probing smaller config (%s)",
-                    (bc_t, du_t, sr_t), NA, NB, k,
-                    type(exc).__name__,
-                )
+    if isinstance(bseq, np.ndarray):
+        bseq = bseq.astype(np.uint8, copy=False)
+    step_jit = _align_step_rle_jit if rle else _align_step_packed_jit
+    extra = {"nr": RLE_RUNS} if rle else {}
+    if CHUNK_TRACE is not None:
+        CHUNK_TRACE.append({
+            "B": int(aseq.shape[0]), "NA": int(aseq.shape[1]),
+            "NB": int(bseq.shape[1]), "k": int(k), "impl": impl,
+            "rle": bool(rle), "device": int(dev.id),
+        })
+    packed, aux = step_jit(
+        jnp.asarray(aseq), jnp.asarray(bseq), jnp.asarray(la),
+        jnp.asarray(lb), jnp.asarray(table32), jnp.asarray(gc),
+        k=k, impl=impl, **extra,
+    )
     # trim the fetch to a host-known walk-length bound: the scan traceback
-    # left-aligns each bank's op stream, so every real op (plus -1 waiting
-    # holes) lives in the first max(la+lb) + 2k - 1 rows. The slice
-    # dispatches asynchronously NOW, so the fetch loop later pays no extra
-    # device round trip. Rounded to x32 rows to bound the number of
-    # distinct slice executables per bucket.
+    # left-aligns the op stream, so every real op (plus -1 waiting holes)
+    # lives in the first max(la+lb) + 2k - 1 rows. The slice dispatches
+    # asynchronously NOW, so the fetch loop later pays no extra device
+    # round trip. Rounded to x32 rows to bound the number of distinct
+    # slice executables per bucket.
     nsteps = min(int(np.max(la + lb)) + 2 * k - 1, packed.shape[0] * 4)
     rows = min(_round_up(-(-nsteps // 4), 32), packed.shape[0])
     packed = packed[:rows]
@@ -758,7 +489,7 @@ def viterbi_align_batch(
     table32 = np.asarray(table, dtype=np.float32)
     # run-length-encoded result fetch (one small transfer per chunk);
     # COATI_TPU_FETCH_RLE=0 restores the full packed-op-stream fetch
-    use_rle = _os.environ.get("COATI_TPU_FETCH_RLE", "1") != "0"
+    use_rle = os.environ.get("COATI_TPU_FETCH_RLE", "1") != "0"
     if table_idx is not None:
         if table32.ndim != 3:
             raise ValueError("table_idx requires a stacked [G, rows, 15] table")
@@ -779,22 +510,8 @@ def viterbi_align_batch(
         qa = max(_round_up(len(a), quantum), quantum)
         qb = max(_round_up(len(b), quantum), quantum)
         buckets[(qa, qb)].append(idx)
-    # lone/paired long-ish buckets: the FOLDED segmented sweep (slot axis
-    # spread over the spare sublanes) does 2 passes with no padding waste,
-    # beating the one-pass bucketed kernel whose bc<8 chunks sublane-pad
-    # 8/B x; the break-even is ~3 pairs per bucket
-    if long_slots is None:
-        for key in list(buckets):
-            _, qb = key
-            Cq = ((qb + k + 127) // 128) * 128
-            if Cq > PALLAS_MAX_C and len(buckets[key]) <= 2:
-                long_pairs.extend(buckets.pop(key))
-
     results: list[AlignResult | None] = [None] * len(enc_as)
-    total_cells = sum(
-        (qa + k) * (qb + k) * len(v) for (qa, qb), v in buckets.items()
-    )
-    devs = _devices_for(total_cells)
+    devs = backend.devices()
     # model table + gap consts go device-resident once per batch (per
     # device), not re-transferred with every chunk
     resident = {}
@@ -850,9 +567,8 @@ def viterbi_align_batch(
                     pass
             inflight.append((chunk, n_real, rle_c, launched))
 
-    # long pairs: segmented two-pass traceback (O(n) memory), batched —
-    # the sweep's batch axis sublane-pads to 8 rows, so grouping up to 8
-    # similar-length long pairs per sweep is device-time-free vs one
+    # long pairs: segmented two-pass traceback (O(n) memory), batched:
+    # similar-length long pairs share one sweep
     if long_pairs:
         from coati_tpu.align.longseq import (
             long_batch_width,
@@ -882,8 +598,7 @@ def viterbi_align_batch(
                     continue
             groups.append([idx])
 
-        dev = _devices_for(1 << 62)[0]  # long pairs always warrant the TPU
-        with jax.default_device(dev):
+        with jax.default_device(devs[0]):
             for grp in groups:
                 out = viterbi_align_long_batch(
                     [enc_as[i] for i in grp], [enc_bs[i] for i in grp],
@@ -928,6 +643,8 @@ def viterbi_scores_batch(
         buckets[(qa, qb)].append(idx)
 
     scores = np.zeros(len(enc_as), dtype=np.float32)
+    dev = backend.devices()[0]
+    impl = backend.dp_impl(dev.platform, "score")
     for (qa, qb), idxs in buckets.items():
         cells = (qa + k) * (qb + k)
         max_b = max(1, max_batch_cells // cells)
@@ -936,48 +653,12 @@ def viterbi_scores_batch(
             aseq, bseq, la, lb = _pad_batch(
                 [enc_as[i] for i in chunk], [enc_bs[i] for i in chunk], quantum
             )
-            dev = _device_for(len(chunk) * cells)
-            C = ((bseq.shape[1] + k + 127) // 128) * 128
-            bc = _pallas_bc_for(C, want_bp=False)
-            use_pallas = (
-                getattr(dev, "platform", "cpu") != "cpu" and bc is not None
-            )
             with jax.default_device(dev):
-                if use_pallas:
-                    from coati_tpu.kernels.wavefront_pallas import (
-                        wavefront_pallas,
-                    )
-
-                    pad_b = (-len(chunk)) % bc
-                    if pad_b:
-                        aseq = np.concatenate(
-                            [aseq, np.zeros((pad_b, aseq.shape[1]), np.int32)]
-                        )
-                        bseq = np.concatenate(
-                            [bseq, np.zeros((pad_b, bseq.shape[1]), np.int32)]
-                        )
-                        la = np.concatenate([la, np.full(pad_b, 3 * k, np.int32)])
-                        lb = np.concatenate([lb, np.full(pad_b, k, np.int32)])
-                    (cm, cd, ci), _ = wavefront_pallas(
-                        jnp.asarray(aseq), jnp.asarray(bseq), jnp.asarray(la),
-                        jnp.asarray(lb), jnp.asarray(table32), jnp.asarray(gc),
-                        k=k, bc=bc, want_bp=False,
-                    )
-                    cm = cm[: len(chunk)]
-                    cd = cd[: len(chunk)]
-                    ci = ci[: len(chunk)]
-                else:
-                    (cm, cd, ci), _ = wavefront(
-                        jnp.asarray(aseq),
-                        jnp.asarray(bseq),
-                        jnp.asarray(la),
-                        jnp.asarray(lb),
-                        jnp.asarray(table32),
-                        jnp.asarray(gc),
-                        k=k,
-                        semiring="tropical",
-                        mode="score",
-                    )
+                (cm, cd, ci), _ = dp_fill_jit(
+                    jnp.asarray(aseq), jnp.asarray(bseq), jnp.asarray(la),
+                    jnp.asarray(lb), jnp.asarray(table32), jnp.asarray(gc),
+                    k=k, mode="score", impl=impl,
+                )
             sc = np.maximum(np.asarray(cm), np.maximum(np.asarray(cd), np.asarray(ci)))
             scores[chunk] = sc
     return scores

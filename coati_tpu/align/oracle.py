@@ -1,7 +1,7 @@
 """NumPy oracle for the pair-HMM DP: a float32-faithful mirror of the
 reference forward_impl / traceback / sampleback (align_pair.cc:62-458).
 
-This is the correctness reference for the TPU kernels and the host engine
+This is the correctness reference for the device kernels and the host engine
 for tiny inputs and stochastic traceback. Loops are plain Python; use only
 on short sequences (tests) or for tracebacks (O(n+m)).
 """

@@ -1,9 +1,9 @@
-"""Batched anti-diagonal wavefront pair-HMM DP for TPU (XLA path).
+"""Batched anti-diagonal wavefront pair-HMM DP (XLA path).
 
-TPU-first re-design of the reference's sequential cell loop
+A re-design of the reference's sequential cell loop
 (align_pair.cc:94-129): one lax.scan step per anti-diagonal d = i + j,
 computing every cell of the diagonal for every pair in the batch as wide
-VPU vector ops. The anti-diagonal order preserves the reference's exact
+vector ops. The anti-diagonal order preserves the reference's exact
 per-cell float32 operation order (every cell depends only on earlier
 diagonals), so Viterbi results — including tie-breaking and therefore gap
 placement — match the C++ implementation.
@@ -14,7 +14,7 @@ Recurrence sources:
     match   <- diagonal d-2,  slot j-1   (i-1, j-1)
     delete  <- diagonal d-k,  slot j     (i-k, j)
     insert  <- diagonal d-k,  slot j-k   (i,   j-k)
-so the scan carries a ring of the last max(k, 2) diagonals in registers/VMEM.
+so the scan carries a ring of the last max(k, 2) diagonals.
 
 Outputs per mode:
     viterbi: packed 5-bit backpointers per cell (uint8, one byte per cell —
@@ -115,11 +115,11 @@ def wavefront_impl(
         raise ValueError(semiring)
 
     # --- emission lookup setup ------------------------------------------------
-    # Cell (i, j) on diagonal d uses table[a[d-j-k], b[j-k]]. Per-step table
-    # gathers are catastrophically slow on TPU, so the lookup is split:
+    # Cell (i, j) on diagonal d uses table[a[d-j-k], b[j-k]]. To keep
+    # gathers out of the scan body, the lookup is split:
     #   TA[p, c, t] = table[a_rev_pad[p, t], c]   (one bulk gather, setup)
     #   sub[p, j]   = sum_c TA[p, c, d_slice + j] * onehot_b[p, c, j]
-    # i.e. a dynamic slice plus a 15-term masked sum per diagonal — pure VPU.
+    # i.e. a dynamic slice plus a 15-term masked sum per diagonal.
     a_rev = jnp.flip(aseq, axis=1)  # a_rev[t] = a[NA-1-t]
     a_rev_pad = jnp.pad(a_rev, ((0, 0), (C, C + k)), constant_values=0)
     # TA: [B, 15, NA + 2C + k]
@@ -268,157 +268,103 @@ wavefront = functools.partial(
 )(wavefront_impl)
 
 
-def traceback_ops_impl(bp, corners, lens_a, lens_b, *, k: int,
-                       u_space: bool = False, d_base=None, row_idx=None):
+def dp_fill(aseq, bseq, lens_a, lens_b, table, gap_consts, *, k: int,
+            mode: str, impl: str):
+    """The whole-matrix DP fill in `mode` ('viterbi', 'score' or 'forward',
+    the last in the log semiring) by `impl` ('xla': wavefront_impl; 'cuda':
+    kernels/wavefront.cu). Both return ((cM, cD, cI), ys); the CUDA kernel
+    leaves ys outside each pair's (la + k) x (lb + k) rectangle unwritten.
+    backend.dp_impl chooses `impl`."""
+    if impl == "cuda":
+        from coati_tpu.kernels.wavefront_cuda import wavefront_cuda
+
+        return wavefront_cuda(aseq, bseq, lens_a, lens_b, table, gap_consts,
+                              k=k, mode=mode)
+    if impl != "xla":
+        raise ValueError(impl)
+    semiring = "log" if mode == "forward" else "tropical"
+    return wavefront_impl(aseq, bseq, lens_a, lens_b, table, gap_consts,
+                          k=k, semiring=semiring, mode=mode)
+
+
+dp_fill_jit = functools.partial(
+    jax.jit, static_argnames=("k", "mode", "impl")
+)(dp_fill)
+
+
+def traceback_ops_impl(bp, corners, lens_a, lens_b, *, k: int):
     """Device-side vectorized traceback walk.
 
     The per-pair walk is sequential, but all pairs in the batch advance one
-    step per scan iteration; only the tiny op sequence [max_steps, B] int8
-    leaves the device (the packed bp stack [Dtot, B, C] stays in HBM —
-    important when the host link is slow).
-
-    u_space: bp produced by the Pallas kernel stores cell (i, j) at column
-    i mod C instead of j.
-
-    d_base / row_idx: for diagonal-stacked bp (wavefront_pallas_stacked):
-    pair p's cells live at diagonals d_base[p] + i + j in bp row
-    row_idx[p]; its walk ends at i == d_base[p] + k - 1.
+    step per scan iteration; only the tiny op sequence [Dtot, B] int8
+    leaves the device (the packed bp stack [Dtot, B, C] stays in device
+    memory).
 
     Returns (ops, (start_state, score)): ops[s, p] is the s-th op walking
     BACKWARD from the corner (0=match, 1=delete, 2=insert, -1=inactive).
     """
     cM, cD, cI = corners
-    Dtot = bp.shape[0]
-    B = cM.shape[0]
-    C = bp.shape[2]
-    max_steps = Dtot - 1
+    S, B, C = bp.shape
 
     st0 = _argmax_mdi(cM, cD, cI).astype(jnp.int32)
     score = jnp.maximum(cM, jnp.maximum(cD, cI))
-    if d_base is None:
-        d_base = jnp.zeros((B,), jnp.int32)
-    i_end = d_base + jnp.int32(k - 1)
-    i0 = d_base + lens_a + jnp.int32(k - 1)
+    i_end = jnp.int32(k - 1)
+    i0 = lens_a + jnp.int32(k - 1)
     j0 = lens_b + jnp.int32(k - 1)
-    rows = jnp.arange(B, dtype=jnp.int32) if row_idx is None else row_idx
 
-    # Diagonal-synchronous scan walk (default): one tiny XLA gather per
-    # step costs ~µs each (TPU gathers are fixed-overhead + ~ns/element),
-    # so the per-step pointer chase was ~25% of the fused align step.
-    # Instead, stream the bp rows through a lax.scan sweeping diagonals
-    # top-down — ZERO gathers: each pair extracts its byte from the swept
-    # [rows, C] plane with a one-hot lane select and emits its op only
-    # when the sweep reaches its current diagonal. Waiting iterations (the
-    # extra diagonal of an M step; k-1 of D/I at k>1; bank offsets in the
-    # stacked layout) emit -1 holes, which every downstream consumer
-    # skips (string builders filter op < 0; the RLE encoder carries the
-    # last valid op across holes). Per-bank rolls left-align the streams
-    # so the engine's fetch-trim bound stays ~max(la+lb).
-    rows_n = bp.shape[1]
-    R_f = B // rows_n
-    use_scan = (not u_space) and R_f * rows_n == B
+    # Diagonal-synchronous scan walk: stream the bp rows through a
+    # lax.scan sweeping diagonals top-down with no gathers. Each pair
+    # extracts its byte from the swept [B, C] plane with a one-hot lane
+    # select and emits its op only when the sweep reaches its current
+    # diagonal. Waiting iterations (the extra diagonal of an M step; k-1 of
+    # D/I at k>1) emit -1 holes, which every downstream consumer skips
+    # (string builders filter op < 0; the RLE encoder carries the last
+    # valid op across holes).
+    U2 = 4 if S % 4 == 0 else (2 if S % 2 == 0 else 1)
+    c_iota = jnp.arange(C, dtype=jnp.int32)[None, :]
+    bp_c = bp.reshape(S // U2, U2, B, C)
+    d_vals = jnp.arange(S, dtype=jnp.int32).reshape(S // U2, U2)
 
-    if use_scan:
-        S = Dtot
-        U2 = 4 if S % 4 == 0 else (2 if S % 2 == 0 else 1)
-        c_iota = jnp.arange(C, dtype=jnp.int32)[None, :]
-        bp_c = bp.reshape(S // U2, U2, rows_n, C)
-        d_vals = jnp.arange(S, dtype=jnp.int32).reshape(S // U2, U2)
+    def body(carry, xs):
+        i, j, st = carry
+        blk, dv = xs
+        op_rows = []
+        for u in range(U2 - 1, -1, -1):
+            alive = (i > i_end) | (j > k - 1)
+            act = alive & ((i + j) == dv[u])
+            oh = (c_iota == j[:, None]) & act[:, None]
+            code = jnp.max(
+                jnp.where(oh, blk[u], jnp.uint8(0)), axis=1
+            ).astype(jnp.int32)
+            nxt_m = code & 3
+            nxt_d = (code >> 2) & 3
+            nxt_i = (code >> 4) & 3
+            nxt = jnp.where(st == 0, nxt_m,
+                            jnp.where(st == 1, nxt_d, nxt_i))
+            di = jnp.where(st == 0, 1, jnp.where(st == 1, k, 0))
+            dj = jnp.where(st == 0, 1, jnp.where(st == 1, 0, k))
+            op_rows.append(jnp.where(act, st, -1).astype(jnp.int8))
+            i = jnp.where(act, i - di, i)
+            j = jnp.where(act, j - dj, j)
+            st = jnp.where(act, nxt, st)
+        # ys blocks must be in ascending-d order so a plain reshape
+        # reassembles the sweep
+        return (i, j, st), jnp.stack(op_rows[::-1])  # [U2, B]
 
-        def body(carry, xs):
-            i, j, st = carry
-            blk, dv = xs
-            op_rows = []
-            for u in range(U2 - 1, -1, -1):
-                d = dv[u]
-                row_blk = blk[u]  # [rows_n, C]
-                alive = (i > i_end) | (j > k - 1)
-                act = alive & ((i + j) == d)
-                parts = []
-                for rr in range(R_f):
-                    sl = slice(rr * rows_n, (rr + 1) * rows_n)
-                    oh = (c_iota == j[sl][:, None]) & act[sl][:, None]
-                    parts.append(jnp.max(
-                        jnp.where(oh, row_blk, jnp.uint8(0)), axis=1
-                    ))
-                code = (parts[0] if R_f == 1
-                        else jnp.concatenate(parts)).astype(jnp.int32)
-                nxt_m = code & 3
-                nxt_d = (code >> 2) & 3
-                nxt_i = (code >> 4) & 3
-                nxt = jnp.where(st == 0, nxt_m,
-                                jnp.where(st == 1, nxt_d, nxt_i))
-                di = jnp.where(st == 0, 1, jnp.where(st == 1, k, 0))
-                dj = jnp.where(st == 0, 1, jnp.where(st == 1, 0, k))
-                op_rows.append(jnp.where(act, st, -1).astype(jnp.int8))
-                i = jnp.where(act, i - di, i)
-                j = jnp.where(act, j - dj, j)
-                st = jnp.where(act, nxt, st)
-            # ys blocks must be in ascending-d order so a plain reshape
-            # reassembles the sweep
-            ops_blk = jnp.stack(op_rows[::-1])  # [U2, B]
-            return (i, j, st), ops_blk
+    _, ys = jax.lax.scan(body, (i0, j0, st0), (bp_c, d_vals), reverse=True)
+    ops = jnp.flip(ys.reshape(S, B), axis=0)  # backward-walk order
 
-        _, ys = jax.lax.scan(body, (i0, j0, st0), (bp_c, d_vals),
-                             reverse=True)
-        ops = jnp.flip(ys.reshape(S, B), axis=0)  # backward-walk order
-
-        # left-align per bank: drop the all-hole rows above each bank's
-        # highest possible corner so the first ~max(la+lb)+2k-1 rows hold
-        # every real op (the engine trims its fetch to that bound)
-        maxlalb = jnp.max(lens_a + lens_b)
-        if R_f == 1:
-            shift = jnp.maximum(
-                (S - 1) - (d_base[0] + maxlalb + 2 * (k - 1)), 0
-            )
-            ops = jnp.roll(ops, -shift, axis=0)
-        else:
-            banks = []
-            for rr in range(R_f):
-                bank_corner = (d_base[rr * rows_n] + maxlalb
-                               + 2 * (k - 1))
-                shift = jnp.maximum((S - 1) - bank_corner, 0)
-                banks.append(jnp.roll(
-                    ops[:, rr * rows_n : (rr + 1) * rows_n], -shift,
-                    axis=0,
-                ))
-            ops = jnp.concatenate(banks, axis=1)
-        return ops, (st0, score)
-
-    ops0 = jnp.full((max_steps, B), -1, dtype=jnp.int8)
-
-    def cond(carry):
-        i, j, st, s, ops = carry
-        return ((s < max_steps)
-                & jnp.any((i > i_end) | (j > k - 1)))
-
-    def body(carry):
-        i, j, st, s, ops = carry
-        active = (i > i_end) | (j > k - 1)
-        col = jax.lax.rem(i, C) if u_space else j
-        code = bp[i + j, rows, col].astype(jnp.int32)
-        nxt_m = code & 3
-        nxt_d = (code >> 2) & 3
-        nxt_i = (code >> 4) & 3
-        nxt = jnp.where(st == 0, nxt_m, jnp.where(st == 1, nxt_d, nxt_i))
-        di = jnp.where(st == 0, 1, jnp.where(st == 1, k, 0))
-        dj = jnp.where(st == 0, 1, jnp.where(st == 1, 0, k))
-        op = jnp.where(active, st, -1).astype(jnp.int8)
-        ops = jax.lax.dynamic_update_slice(ops, op[None, :], (s, 0))
-        i = jnp.where(active, i - di, i)
-        j = jnp.where(active, j - dj, j)
-        st = jnp.where(active, nxt, st)
-        return (i, j, st, s + 1, ops)
-
-    # while_loop instead of a fixed scan: every pair's walk finishes in
-    # ~path-length steps (roughly max(n, m) + gaps), about half of the
-    # worst-case n + m the scan would always run
-    *_, ops = jax.lax.while_loop(cond, body, (i0, j0, st0, 0, ops0))
+    # left-align: drop the all-hole rows above the highest corner so the
+    # first ~max(la+lb)+2k-1 rows hold every real op (the engine trims its
+    # fetch to that bound)
+    maxlalb = jnp.max(lens_a + lens_b)
+    shift = jnp.maximum((S - 1) - (maxlalb + 2 * (k - 1)), 0)
+    ops = jnp.roll(ops, -shift, axis=0)
     return ops, (st0, score)
 
 
 traceback_ops = functools.partial(
-    jax.jit, static_argnames=("k", "u_space")
+    jax.jit, static_argnames=("k",)
 )(traceback_ops_impl)
 
 

@@ -1,6 +1,6 @@
 """Batch alignment stream: align many pairs with progress manifest + resume.
 
-The reference aligns one pair per process invocation; the TPU framework's
+The reference aligns one pair per process invocation; this framework's
 primary workload is streaming millions of pairs through batched kernels.
 This module adds the surrounding runtime the reference never needed
 (SURVEY.md section 5): length-bucketed scheduling, a JSONL results stream,
@@ -82,7 +82,7 @@ def batch_align(
 
     Triplet models (tri-mg / tri-ecm / dna) route to the batched codon-
     context device path (triplet_wavefront.triplet_align_batch); marginal
-    models use the Pallas wavefront engine."""
+    models use the batched wavefront engine (align/engine.py)."""
     from coati_tpu.align.engine import viterbi_align_batch
 
     utils.set_subst(aln)

@@ -239,16 +239,15 @@ VERBS = {
 }
 
 
-# inputs above this size amortize remote-TPU init latency (bytes)
-BIG_INPUT_BYTES = 512 * 1024
-
-
 def _resolve_platform(argv):
-    """Parse/strip --platform and decide the backend. Pure: returns
-    (platform in {"cpu", "tpu", "default"}, argv-without-the-flag)."""
+    """Parse/strip --platform. Pure: returns (platform, argv-without-the-
+    flag), the platform from the flag, else COATI_TPU_FORCE_PLATFORM, else
+    'auto'; backend.requested_platform validates it."""
     import os
 
-    platform = os.environ.get("COATI_TPU_FORCE_PLATFORM", "auto") or "auto"
+    from coati_tpu.backend import ENV_PLATFORM
+
+    platform = os.environ.get(ENV_PLATFORM, "auto") or "auto"
     out = []
     i = 0
     while i < len(argv):
@@ -262,44 +261,15 @@ def _resolve_platform(argv):
             continue
         out.append(argv[i])
         i += 1
-
-    if platform == "auto":
-        big_input = False
-        for a in out[1:]:
-            if not a.startswith("-") and os.path.isfile(a):
-                try:
-                    big_input = big_input or (
-                        os.path.getsize(a) > BIG_INPUT_BYTES
-                    )
-                except OSError:
-                    pass
-        platform = "cpu" if not big_input else "default"
     return platform, out
 
 
-def _configure_platform(argv) -> list:
-    """Pick the JAX platform before any backend initializes.
-
-    Initializing a remote/tunneled TPU backend can cost minutes; the CLI
-    aligns one input per invocation, so it defaults to the CPU backend
-    unless --platform tpu (or COATI_TPU_FORCE_PLATFORM) asks for the
-    accelerator, or the input file is large enough to amortize it (>512 KiB).
-    Batch/bench users drive the engine API from a single warm process.
-    """
-    platform, out = _resolve_platform(argv)
-    if platform == "cpu":
-        try:
-            import jax
-
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:  # pragma: no cover - backend already initialized
-            pass
-    return out
-
-
 def main(argv=None) -> int:
+    """`--platform {auto,cpu,gpu}` picks the devices for this verb (see
+    backend.py): gpu with no GPU present is an error, and cpu keeps JAX off
+    any accelerator."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    argv = _configure_platform(argv)
+    platform, argv = _resolve_platform(argv)
     if not argv or argv[0] in ("-h", "--help", "help"):
         print(f"Usage: {PROG} command [options]\n\nCommands available:")
         for v in VERBS:
@@ -309,14 +279,28 @@ def main(argv=None) -> int:
     if verb not in VERBS:
         print(f"ERROR: command {verb} not supported.", file=sys.stderr)
         return 1
-    # runtime header/library version cross-check (reference verb.hpp:44-49)
-    from coati_tpu.version import check_version_number
+    from coati_tpu import backend
 
-    rc = check_version_number()
-    if rc != 0:
-        return rc
     try:
-        return VERBS[verb](argv[1:])
+        with backend.platform_override(platform):
+            if platform == "cpu":
+                import jax
+
+                # before any backend initializes, so no accelerator is
+                # touched; once initialized, backend.devices() still
+                # picks the CPU
+                try:
+                    jax.config.update("jax_platforms", "cpu")
+                except RuntimeError:
+                    pass
+            elif platform == "gpu":
+                backend.devices()  # fail now when there is no GPU
+            # runtime header/library version cross-check (reference
+            # verb.hpp:44-49)
+            from coati_tpu.version import check_version_number
+
+            rc = check_version_number()
+            return rc if rc != 0 else VERBS[verb](argv[1:])
     except SystemExit as exc:  # argparse validation errors (exit code 2)
         return int(exc.code) if exc.code else 0
     except (ValueError, RuntimeError, OSError) as exc:

@@ -1,8 +1,7 @@
 """High-level alignment drivers (reference align_marginal.cc:44-88, :536-594).
 
-The pairwise engine is selected automatically: the batched JAX wavefront
-kernel when available / beneficial, falling back to the NumPy oracle for
-tiny inputs or when JAX is unavailable.
+Viterbi alignment runs the batched engine (align/engine.py) on the devices
+backend.py picks; sampling chooses its route by DP size (marg_sample).
 """
 
 from __future__ import annotations
@@ -62,34 +61,22 @@ def _forward_diag(enc_a, enc_b, aln):
     import jax
     import jax.numpy as jnp
 
-    from coati_tpu.align.engine import _device_for
-    from coati_tpu.align.wavefront import gap_consts_array, wavefront
+    from coati_tpu import backend
+    from coati_tpu.align.wavefront import dp_fill_jit, gap_consts_array
 
     k = aln.gap.len
     na, nb = len(enc_a), len(enc_b)
-    dev = _device_for((na + k) * (nb + k))
-    C128 = ((nb + k + 127) // 128) * 128
-    args = (
-        jnp.asarray(np.asarray(enc_a)[None, :]),
-        jnp.asarray(np.asarray(enc_b)[None, :]),
-        jnp.asarray([na], dtype=jnp.int32),
-        jnp.asarray([nb], dtype=jnp.int32),
-        jnp.asarray(np.asarray(aln.subst_matrix, dtype=np.float32)),
-        jnp.asarray(gap_consts_array(aln.gap)),
-    )
+    dev = backend.devices()[0]
     with jax.default_device(dev):
-        if getattr(dev, "platform", "cpu") != "cpu" and C128 <= 11264:
-            # VMEM-resident kernel: B=1 would pay a ~3 ms/step dispatch tax
-            # in the scan fallback (~60 s for a 10k-nt pair)
-            from coati_tpu.kernels.wavefront_pallas import wavefront_pallas
-
-            (cm, cd, ci), (Ms, Ds, Is) = wavefront_pallas(
-                *args, k=k, bc=1, mode="forward"
-            )
-        else:
-            (cm, cd, ci), (Ms, Ds, Is) = wavefront(
-                *args, k=k, semiring="log", mode="forward"
-            )
+        (cm, cd, ci), (Ms, Ds, Is) = dp_fill_jit(
+            jnp.asarray(np.asarray(enc_a, np.int32)[None, :]),
+            jnp.asarray(np.asarray(enc_b, np.int32)[None, :]),
+            jnp.asarray([na], dtype=jnp.int32),
+            jnp.asarray([nb], dtype=jnp.int32),
+            jnp.asarray(np.asarray(aln.subst_matrix, dtype=np.float32)),
+            jnp.asarray(gap_consts_array(aln.gap)),
+            k=k, mode="forward", impl=backend.dp_impl(dev.platform, "forward"),
+        )
     corners = (float(cm[0]), float(cd[0]), float(ci[0]))
     return Ms[:, 0, :], Ds[:, 0, :], Is[:, 0, :], corners, dev
 

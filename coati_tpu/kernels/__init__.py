@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot DP paths."""
+"""Device kernels for the hot DP paths (CUDA, called through jax.ffi)."""

@@ -1,8 +1,8 @@
 """Muse & Gaut (1994) codon substitution model and GTR nucleotide model.
 
-TPU-first design: the 61x61 P matrix is tiny and computed ONCE per
-(t, omega, pi, sigma) on the host in float64 (scipy expm), then replicated to
-every chip as a constant. The reference computes the same quantity per
+The 61x61 P matrix is tiny and computed ONCE per (t, omega, pi, sigma) on
+the host in float64 (scipy expm), then replicated to every device as a
+constant. The reference computes the same quantity per
 alignment call in float32 Eigen (/root/reference/src/lib/mutation_coati.cc:49-125);
 we compute it in f64 for accuracy and vectorize the Q construction.
 """

@@ -1,6 +1,6 @@
 """Tree-guided reference-anchored MSA (reference align_msa.cc).
 
-TPU-first redesign: all leaf-vs-reference pairwise alignments run as ONE
+Batched redesign: all leaf-vs-reference pairwise alignments run as ONE
 batched wavefront kernel call per distinct branch length group (the
 reference loops leaves sequentially and rebuilds the 61x61 expm per leaf,
 align_msa.cc:285-318); the insertion merge up the tree is tiny host logic.

@@ -1,30 +1,57 @@
 """ctypes bindings to the native pair-HMM engine (native/pairhmm.cc).
 
-Built on demand with `make -C native`. Used as the single-thread C++
-baseline in benchmarks and as a JAX-free host fast path.
+Built at first use with `make -C native` from the source in the tree, into
+`<repo>/build/native-<hash>/` (gitignored). The hash covers the source, the
+Makefile and the host CPU's feature flags: the library is compiled with
+-march=native, so a build made on one machine is never loaded on another.
+Used as the single-thread C++ baseline and reference in checks, and as a
+JAX-free host fast path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
 import subprocess
 from pathlib import Path
 
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-_LIB_PATH = _NATIVE_DIR / "libcoatihmm.so"
+_BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
 _lib = None
+
+
+def library_path() -> Path:
+    """Where the build for this source and this host's CPU lives."""
+    from coati_tpu.compile_cache import cpu_flags
+
+    h = hashlib.sha256()
+    for name in ("pairhmm.cc", "Makefile"):
+        h.update((_NATIVE_DIR / name).read_bytes())
+    h.update(cpu_flags().encode())
+    return _BUILD_ROOT / f"native-{h.hexdigest()[:16]}" / "libcoatihmm.so"
+
+
+def build() -> Path:
+    """Compile the library unless this source's build for this CPU exists.
+    A failed build raises subprocess.CalledProcessError."""
+    out = library_path()
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f".{out.name}.{os.getpid()}")
+        subprocess.run(["make", "-s", "-B", "-C", str(_NATIVE_DIR),
+                        f"OUT={tmp}"], check=True, capture_output=True)
+        os.replace(tmp, out)  # atomic for concurrent builders
+    return out
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.exists():
-        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                       capture_output=True)
-    lib = ctypes.CDLL(str(_LIB_PATH))
+    lib = ctypes.CDLL(str(build()))
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
@@ -39,13 +66,12 @@ def _load():
         ctypes.c_float, ctypes.c_float, ctypes.c_int, u8p,
         ctypes.POINTER(ctypes.c_int),
     ]
-    if hasattr(lib, "coati_sample_anchor"):
-        lib.coati_sample_anchor.restype = ctypes.c_double
-        lib.coati_sample_anchor.argtypes = [
-            i32p, ctypes.c_int, i32p, ctypes.c_int, f32p,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_uint64,
-        ]
+    lib.coati_sample_anchor.restype = ctypes.c_double
+    lib.coati_sample_anchor.argtypes = [
+        i32p, ctypes.c_int, i32p, ctypes.c_int, f32p,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_uint64,
+    ]
     i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     cp = ctypes.c_char_p
@@ -56,6 +82,13 @@ def _load():
         np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
         np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
         ctypes.c_int64, np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+    ]
+    lib.coati_sampleback.restype = None
+    lib.coati_sampleback.argtypes = [
+        i32p, ctypes.c_int, i32p, ctypes.c_int, f32p,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS"),
+        i8p, ctypes.c_int, f32p,
     ]
     _lib = lib
     return lib
@@ -186,9 +219,6 @@ def sample_anchor(enc_a, enc_b, table, gap, n_samples: int,
     (align_marginal.cc:536-594). Returns the checksum (sum of sampled
     path scores); callers time the call."""
     lib = _load()
-    if not hasattr(lib, "coati_sample_anchor"):
-        raise OSError("libcoatihmm.so predates coati_sample_anchor; "
-                      "run make -C native clean all")
     a = np.ascontiguousarray(enc_a, dtype=np.int32)
     b = np.ascontiguousarray(enc_b, dtype=np.int32)
     t = np.ascontiguousarray(table, dtype=np.float32)
@@ -204,24 +234,7 @@ def sampleback_batch(enc_a, enc_b, table, gap, a: str, b: str, n: int,
     written back). Walk semantics mirror oracle.sampleback_mdi; strings
     are built for all n samples in one native pass (coati_ops_to_strings).
     Returns a list of (s0, s1, score)."""
-    import ctypes as _ct
-
     lib = _load()
-    if not hasattr(lib, "coati_sampleback"):
-        raise OSError("libcoatihmm.so predates coati_sampleback; "
-                      "run make -C native clean all")
-    if not hasattr(lib.coati_sampleback, "_argtypes_set"):
-        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-        lib.coati_sampleback.restype = None
-        lib.coati_sampleback.argtypes = [
-            i32p, _ct.c_int, i32p, _ct.c_int, f32p,
-            _ct.c_float, _ct.c_float, _ct.c_int, _ct.c_int,
-            np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS"),
-            np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS"),
-            _ct.c_int, f32p,
-        ]
-        lib.coati_sampleback._argtypes_set = True
     ea = np.ascontiguousarray(enc_a, dtype=np.int32)
     eb = np.ascontiguousarray(enc_b, dtype=np.int32)
     t = np.ascontiguousarray(table, dtype=np.float32)

@@ -1,4 +1,4 @@
-"""Data-parallel scaling over TPU device meshes."""
+"""Data-parallel scaling over device meshes."""
 
 from coati_tpu.parallel.mesh import (
     make_mesh,

@@ -5,12 +5,13 @@ tables (183x15) are tiny and replicated; the pair batch is sharded over a
 1-D 'data' mesh axis, each chip runs the fused DP+traceback step on its
 shard, and only per-pair op sequences / scores are gathered. This replaces
 the reference's single-threaded loop (it has no parallelism at all,
-SURVEY.md section 2.3) with jax.sharding + shard_map over ICI.
+SURVEY.md section 2.3) with jax.sharding + shard_map. The cards of one
+host are joined all to all, so the mesh is one flat 'data' axis.
 
 Two production modes exist:
   - shard_map (this module): one jitted executable spanning the mesh; the
-    local body is engine.fused_align_ops_impl — the same Pallas/XLA kernel
-    the single-device engine runs.
+    local body is engine.fused_align_ops_impl — the same step the
+    single-device engine runs.
   - round-robin (align/engine.py): independent async dispatches per local
     device, which tolerates ragged bucket shapes; used by the batch verb.
 """
@@ -92,26 +93,18 @@ def sharded_viterbi_scores(
     return np.asarray(jax.device_get(scores))[:n]
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "mesh", "use_pallas", "code_cols", "bc", "du"),
-)
+@functools.partial(jax.jit, static_argnames=("k", "mesh", "impl"))
 def sharded_align_step(aseq, bseq, lens_a, lens_b, table, gc, *, k, mesh,
-                       use_pallas=False, code_cols=tuple(range(15)), bc=8,
-                       du=1):
+                       impl="xla"):
     """Full data-parallel alignment step: DP fill + on-device traceback walk.
 
     Returns (ops [steps, B] int8 backward-ordered, scores [B]) with the
     batch dimension sharded over 'data'. The local body is the exact fused
-    step the single-device engine runs (Pallas kernel when use_pallas);
-    this is the jit'd unit the driver dry-runs over an N-device mesh.
-    """
+    step the single-device engine runs (`impl` from backend.dp_impl)."""
 
     def local(aseq, bseq, la, lb, table, gc):
-        return fused_align_ops_impl(
-            aseq, bseq, la, lb, table, gc,
-            k=k, use_pallas=use_pallas, code_cols=code_cols, bc=bc, du=du,
-        )
+        return fused_align_ops_impl(aseq, bseq, la, lb, table, gc, k=k,
+                                    impl=impl)
 
     return jax.shard_map(
         local,
@@ -129,31 +122,17 @@ def sharded_viterbi_align_batch(
     """Production mesh alignment: pad the batch over the 'data' axis, run the
     fused step as ONE executable spanning the mesh, build strings on host.
 
-    Returns a list of AlignResult in input order. Pallas is used when the
-    mesh devices are TPUs (each shard must then be a multiple of the kernel's
-    batch-chunk width bc)."""
-    from coati_tpu.align.engine import (
-        AlignResult,
-        _pad_batch,
-        _pallas_bc_for,
-        _round_up,
-        ops_to_strings,
-    )
+    Returns a list of AlignResult in input order."""
+    from coati_tpu import backend
+    from coati_tpu.align.engine import _pad_batch, _round_up, ops_to_strings
     from coati_tpu.align.wavefront import gap_consts_array
 
     n = len(enc_as)
     nd = mesh.devices.size
     k = int(gap.len)
-    platform = mesh.devices.flat[0].platform
+    impl = backend.dp_impl(mesh.devices.flat[0].platform, "viterbi")
 
-    # shard granularity: nd devices x (bc rows per Pallas chunk when on TPU)
-    nb_max = max(len(b) for b in enc_bs)
-    C = ((_round_up(max(nb_max, quantum), quantum) + k + 127) // 128) * 128
-    bc = _pallas_bc_for(C, want_bp=True)
-    use_pallas = platform not in ("cpu",) and bc is not None
-    gran = nd * (bc if use_pallas else 1)
-
-    pad_n = _round_up(max(n, gran), gran)
+    pad_n = _round_up(max(n, nd), nd)
     enc_pad = list(enc_as) + [enc_as[0]] * (pad_n - n)
     enc_bpad = list(enc_bs) + [enc_bs[0]] * (pad_n - n)
     aseq, bseq, la, lb = _pad_batch(enc_pad, enc_bpad, quantum)
@@ -170,13 +149,7 @@ def sharded_viterbi_align_batch(
         jax.device_put(jnp.asarray(table32), rep),
         jax.device_put(jnp.asarray(gc), rep),
     )
-    from coati_tpu.align.engine import _du_for
-
-    ops_d, score_d = sharded_align_step(
-        *args, k=k, mesh=mesh, use_pallas=use_pallas,
-        bc=bc if use_pallas else 8,
-        du=_du_for(C, bc) if use_pallas else 1,
-    )
+    ops_d, score_d = sharded_align_step(*args, k=k, mesh=mesh, impl=impl)
     ops = np.asarray(jax.device_get(ops_d))[::-1, :n]
     score = np.asarray(jax.device_get(score_d))[:n]
     return ops_to_strings(ops, score, list(a_strs), list(b_strs), k)

@@ -22,7 +22,8 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None) -> None:
     """Initialize jax.distributed (no-op if already initialized or single
     process). Arguments default to JAX's env-based autodetection
-    (JAX_COORDINATOR_ADDRESS etc. / TPU metadata)."""
+    (JAX_COORDINATOR_ADDRESS etc.); where nothing describes a cluster the
+    process runs alone."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator,
@@ -53,8 +54,8 @@ def host_shard(items: list, process_index: int | None = None,
 
 
 def merge_multihost_outputs(output_base: str, local_scores, n_total: int):
-    """Collate a multi-host batch run (BASELINE.json north star: outputs
-    and log-weights "merged via allgather").
+    """Collate a multi-host batch run (outputs and log-weights merged via
+    allgather).
 
     1. Per-pair scores are allgathered across processes into one global,
        order-preserving array; process 0 writes it to

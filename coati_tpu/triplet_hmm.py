@@ -47,8 +47,8 @@ for _ch, _v in (("A", 0), ("C", 1), ("G", 2), ("T", 3), ("U", 3), ("N", 4)):
 
 def encode_triplet_des(des: str) -> np.ndarray:
     """A,C,G,T(U)->0..3, N->4; other symbols rejected (acceptor table,
-    mutation_fst.cc:310-327). Vectorized LUT — the per-char Python loop
-    was 45% of the 64x999nt batch's end-to-end time (probe_triplet)."""
+    mutation_fst.cc:310-327). Vectorized LUT: a per-char Python loop costs
+    a large share of a 64x999 nt batch's end-to-end time."""
     try:
         raw = np.frombuffer(des.encode("ascii"), np.uint8)
     except UnicodeEncodeError:
@@ -147,8 +147,8 @@ class _DP:
     """Row-sweep DP engine over columns j (0..m), FACTORED over the codon
     lane for codon models.
 
-    Factorization (the key TPU optimization, shared bit-for-bit by this
-    host engine, the XLA scan, and the Pallas kernel): within one codon
+    Factorization (the key optimization, shared bit-for-bit by this host
+    engine and the XLA scan): within one codon
     block the 61 chosen-codon lanes differ only by (a) the codon-entry
     cost logP[anc_t, c'] and (b) the per-phase emission class
     nuc(c', phase) in {A,C,G,T}. Under (max, +) both enter additively, so

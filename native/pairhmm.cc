@@ -56,7 +56,7 @@ GapConsts gap_consts(float gap_open, float gap_extend, int k) {
   return g;
 }
 
-// Packed backpointer codes identical to the TPU kernel:
+// Packed backpointer codes identical to the device kernels:
 // bits 0-1 from-M next state, 2-3 from-D, 4 from-I (0=M, 2=I).
 inline uint8_t argmax_mdi(float m, float d, float i) {
   uint8_t code = (d > m) ? 1 : 0;
@@ -95,7 +95,6 @@ float forward_impl(const int32_t* a, int na, const int32_t* b, int nb,
     float* Mi = row(M, i);
     float* Di = row(D, i);
     float* Ii = row(I, i);
-    std::memset(Mi, 0, 0);  // no-op; rows fully overwritten below
     const float* M1 = row(M, i - 1);
     const float* D1 = row(D, i - 1);
     const float* I1 = row(I, i - 1);

@@ -1,6 +1,6 @@
 """Shared case table for the sampledata byte-parity suite.
 
-Every BASELINE.json config is driven over the REAL reference inputs
+Every reference sampledata config is driven over the REAL reference inputs
 (/root/reference/sampledata) and compared byte-for-byte against goldens
 checked in under tests/data/sampledata_golden/ (generated once by
 tools/gen_sampledata_goldens.py from outputs verified against the

@@ -208,43 +208,78 @@ def test_user_rate_matrix(tmp_path):
     )
 
 
-# --- platform / device-selection heuristics (engine + CLI) --------------------
+# --- platform / device selection (backend + CLI) -----------------------------
 def test_resolve_platform_flag_forms(tmp_path, monkeypatch):
     from coati_tpu.cli import _resolve_platform
 
     monkeypatch.delenv("COATI_TPU_FORCE_PLATFORM", raising=False)
-    p, out = _resolve_platform(["alignpair", "x.fa", "--platform", "tpu"])
-    assert p == "tpu" and out == ["alignpair", "x.fa"]
+    p, out = _resolve_platform(["alignpair", "x.fa", "--platform", "gpu"])
+    assert p == "gpu" and out == ["alignpair", "x.fa"]
     p, out = _resolve_platform(["alignpair", "--platform=cpu", "x.fa"])
     assert p == "cpu" and out == ["alignpair", "x.fa"]
 
 
 def test_resolve_platform_auto_by_input_size(tmp_path, monkeypatch):
-    from coati_tpu.cli import BIG_INPUT_BYTES, _resolve_platform
+    """No size rule: 'auto' stays 'auto' (JAX's default backend) for small
+    and large inputs alike; the env var or the flag override it."""
+    from coati_tpu.cli import _resolve_platform
 
     monkeypatch.delenv("COATI_TPU_FORCE_PLATFORM", raising=False)
     small = tmp_path / "small.fa"
     small.write_text(">a\nACGT\n")
     p, _ = _resolve_platform(["alignpair", str(small)])
-    assert p == "cpu"
+    assert p == "auto"
 
     big = tmp_path / "big.fa"
-    big.write_text(">a\n" + "A" * (BIG_INPUT_BYTES + 10) + "\n")
+    big.write_text(">a\n" + "A" * (1 << 20) + "\n")
     p, _ = _resolve_platform(["alignpair", str(big)])
-    assert p == "default"
+    assert p == "auto"
 
-    monkeypatch.setenv("COATI_TPU_FORCE_PLATFORM", "tpu")
+    monkeypatch.setenv("COATI_TPU_FORCE_PLATFORM", "gpu")
     p, _ = _resolve_platform(["alignpair", str(small)])
-    assert p == "tpu"
+    assert p == "gpu"
+    p, _ = _resolve_platform(["alignpair", str(small), "--platform", "cpu"])
+    assert p == "cpu"
 
 
 def test_engine_device_selection(monkeypatch):
-    from coati_tpu.align.engine import SMALL_CALL_CELLS, _devices_for
+    from coati_tpu import backend
 
     monkeypatch.delenv("COATI_TPU_FORCE_PLATFORM", raising=False)
-    small = _devices_for(SMALL_CALL_CELLS - 1)
-    assert small and all(d.platform == "cpu" for d in small)
-    big = _devices_for(SMALL_CALL_CELLS + 1)
-    assert big  # same virtual CPU mesh here, but the path must not raise
+    devs = backend.devices()
+    assert devs and all(d.platform == "cpu" for d in devs)
+    monkeypatch.setenv("COATI_TPU_FORCE_PLATFORM", "cpu")
+    assert len(backend.devices()) == len(devs)
     monkeypatch.setenv("COATI_TPU_MAX_DEVICES", "1")
-    assert len(_devices_for(SMALL_CALL_CELLS + 1)) == 1
+    assert len(backend.devices()) == 1
+
+
+@pytest.mark.parametrize("how", ["flag", "env"])
+def test_cli_gpu_request_without_gpu_is_an_error(tmp_path, monkeypatch,
+                                                 capsys, how):
+    """Asking for the GPU where JAX finds none fails; it never runs on the
+    CPU instead."""
+    inp = _write(tmp_path, "in.fasta", ">1\nCTCTGGATAGTG\n>2\nCTATAGTG\n")
+    out = tmp_path / "out.fasta"
+    argv = ["alignpair", inp, "-o", str(out)]
+    if how == "flag":
+        argv += ["--platform", "gpu"]
+    else:
+        monkeypatch.setenv("COATI_TPU_FORCE_PLATFORM", "gpu")
+    assert main(argv) == 1
+    assert "no gpu device" in capsys.readouterr().err
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("value", ["rocm", "cuda", "default"])
+def test_cli_rejects_unknown_platform(tmp_path, capsys, value):
+    inp = _write(tmp_path, "in.fasta", ">1\nCTCTGGATAGTG\n>2\nCTATAGTG\n")
+    assert main(["alignpair", inp, "--platform", value]) == 1
+    assert "unknown platform" in capsys.readouterr().err
+
+
+def test_cli_platform_cpu_runs_on_cpu(tmp_path):
+    inp = _write(tmp_path, "in.fasta", ">1\nCTCTGGATAGTG\n>2\nCTATAGTG\n")
+    out = tmp_path / "out.fasta"
+    assert main(["alignpair", inp, "-o", str(out), "--platform", "cpu"]) == 0
+    assert out.read_text() == ">1\nCTCTGGATAGTG\n>2\nCT----ATAGTG\n"

@@ -118,38 +118,6 @@ def test_long_path_matches_native_strings_8k(mg94_table):
     assert long_r.score == pytest.approx(nsc, abs=5e-3)
 
 
-def test_longpair_artifact_is_current():
-    """LONGPAIR.json (produced on real TPU by tools/run_longpair.py) pins
-    the 32 knt and 160 knt bounded-memory runs as checked-in evidence, the
-    way TPU_PARITY.json pins compiled-TPU numerics."""
-    import json
-    from pathlib import Path
-
-    art = Path(__file__).parent.parent / "LONGPAIR.json"
-    if not art.exists():
-        pytest.skip("LONGPAIR.json not generated yet on this checkout")
-    blob = json.loads(art.read_text())
-
-    # freshness coupling (VERDICT r3 weak #8): fail when kernel sources
-    # changed after the artifact was generated
-    from coati_tpu.provenance import kernel_hash
-
-    assert blob.get("kernel_hash") == kernel_hash(art.parent), (
-        "kernel sources changed since LONGPAIR.json was generated — "
-        "regenerate on the accelerator: python tools/run_longpair.py"
-    )
-    by_nt = {e["nt"]: e for e in blob["runs"]}
-    assert 32001 in by_nt and 160002 in by_nt
-    for e in blob["runs"]:
-        assert e["wall_seconds"] > 0
-        assert e["cells"] >= (e["nt"] - 2000) ** 2  # near-square DP
-        assert np.isfinite(e["score"])
-        assert e["device"].lower().startswith("tpu")
-        # bounded memory is the whole point: peak RSS far below the
-        # 3-matrix full-DP requirement (3 * nt^2 * 4 bytes)
-        assert e["peak_rss_kb"] * 1024 < 3 * e["nt"] ** 2 * 4 / 4
-
-
 @pytest.mark.skipif(
     __import__("os").environ.get("COATI_TPU_RUN_SLOW") != "1",
     reason="32 knt parity run is slow; opt in with COATI_TPU_RUN_SLOW=1",
@@ -174,42 +142,14 @@ def test_long_path_matches_native_strings_32k(mg94_table):
     assert long_r.score == pytest.approx(nsc, abs=1e-2)
 
 
-@pytest.mark.parametrize("k,seg", [(1, 256), (3, 252)])
-def test_pallas_segments_match_xla_segments(mg94_table, k, seg):
-    """The VMEM-resident segment kernel (carried ring/window/capture state)
-    reproduces the XLA segmented path exactly — strings and scores."""
-    import random
-
-    from coati_tpu.align.longseq import _viterbi_align_long_pallas
-
-    rng = random.Random(42 + k)
-    gap = GapParams(len=k)
-    anc, des = _mutated_pair(rng, 180, n_indels=3)
-    if k == 3 and len(des) % 3 != 0:
-        des = des[: len(des) - len(des) % 3]
-    ea, eb = encode_marginal(anc, des)
-
-    x = viterbi_align_long(ea, eb, anc, des, mg94_table, gap,
-                           seg_diagonals=seg, quantum=64, engine="xla")
-    p = _viterbi_align_long_pallas([ea], [eb], [anc], [des], mg94_table,
-                                   gap, seg_diagonals=seg, quantum=64,
-                                   interpret=True)[0]
-    assert (p.seq0, p.seq1) == (x.seq0, x.seq1)
-    assert p.score == pytest.approx(x.score, abs=1e-5)
-
-
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
-def test_long_batch_matches_full_bp(mg94_table, engine):
+def test_long_batch_matches_full_bp(mg94_table):
     """A GROUP of long pairs through one batched segmented sweep (the
     ladder's 11k-30k nt cliff fix) == the full-backpointer engine, pair by
     pair — mixed lengths padded to the group max, some pairs finishing
     their walk segments earlier than others."""
     import random
 
-    from coati_tpu.align.longseq import (
-        _viterbi_align_long_pallas,
-        viterbi_align_long_batch,
-    )
+    from coati_tpu.align.longseq import viterbi_align_long_batch
 
     rng = random.Random(99)
     gap = GapParams()
@@ -220,16 +160,10 @@ def test_long_batch_matches_full_bp(mg94_table, engine):
     ancs = [p[0] for p in pairs]
     dess = [p[1] for p in pairs]
 
-    if engine == "pallas":
-        batch = _viterbi_align_long_pallas(
-            eas, ebs, ancs, dess, mg94_table, gap,
-            seg_diagonals=256, quantum=64, interpret=True,
-        )
-    else:
-        batch = viterbi_align_long_batch(
-            eas, ebs, ancs, dess, mg94_table, gap,
-            seg_diagonals=256, quantum=64, engine="xla",
-        )
+    batch = viterbi_align_long_batch(
+        eas, ebs, ancs, dess, mg94_table, gap,
+        seg_diagonals=256, quantum=64,
+    )
     for (ea, eb), a, d, r in zip(encs, ancs, dess, batch):
         full = viterbi_align_batch([ea], [eb], [a], [d], mg94_table, gap,
                                    quantum=64)[0]

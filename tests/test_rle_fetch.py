@@ -156,31 +156,6 @@ def test_rle_16bit_guard(mg94_table, monkeypatch):
         assert (f.seq0, f.seq1, f.score) == (r.seq0, r.seq1, r.score)
 
 
-def test_compile_failure_heuristic_narrow():
-    """_is_compile_failure must retry compile-stage failures only: a bare
-    INTERNAL runtime fault must surface, not walk the config ladder."""
-    from coati_tpu.align.engine import _is_compile_failure
-
-    assert _is_compile_failure(
-        RuntimeError("INTERNAL: Mosaic failed to compile TPU kernel")
-    )
-    assert _is_compile_failure(
-        RuntimeError("RESOURCE_EXHAUSTED: Ran out of memory in "
-                     "memory space vmem")
-    )
-    assert _is_compile_failure(
-        ValueError("Scoped vmem limit exceeded during compilation")
-    )
-    # runtime faults: NOT retried
-    assert not _is_compile_failure(
-        RuntimeError("INTERNAL: Failed to execute XLA program")
-    )
-    assert not _is_compile_failure(ValueError("bad user input"))
-    assert not _is_compile_failure(
-        RuntimeError("INTERNAL: device halted unexpectedly")
-    )
-
-
 def test_blob_roundtrip(mg94_table):
     """Decode(encode(ops)) reproduces the run structure and score bits."""
     import jax.numpy as jnp
@@ -204,7 +179,7 @@ def test_blob_roundtrip(mg94_table):
     packed, blob = fused_align_ops_rle_impl(
         jnp.asarray(aseq), jnp.asarray(bseq), jnp.asarray(la),
         jnp.asarray(lb), jnp.asarray(mg94_table), jnp.asarray(gc),
-        k=1, use_pallas=False, nr=RLE_RUNS,
+        k=1, impl="xla", nr=RLE_RUNS,
     )
     run_len, run_op, n_runs, score = _decode_rle_blob(
         np.asarray(blob), RLE_RUNS

@@ -1,6 +1,6 @@
 """Byte-parity suite over the REAL reference inputs (sampledata/).
 
-Replays every BASELINE.json config (alignpair all models/flags/output
+Replays every reference sampledata config (alignpair all models/flags/output
 formats, seeded sample, msa with newick trees) against checked-in byte
 goldens, and asserts the 10k-160k stress inputs are rejected with the
 reference's diagnostic (utils.cc:488-513). Mirrors the reference's

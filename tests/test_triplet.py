@@ -321,9 +321,9 @@ def test_triplet_device_batch_matches_host(tri_mg, traceback):
         # emissions), so strings must agree EXACTLY, ties included
         assert (s0, s1) == (h0, h1), (anc, des)
         # device and host share one canonical f32 expression tree
-        # (triplet_hmm._DP == triplet_wavefront rows == Pallas kernel),
-        # so scores agree to f32 rounding; 1e-5 guards cross-backend
-        # (CPU vs TPU) rounding-mode drift only
+        # (triplet_hmm._DP == triplet_wavefront rows), so scores agree to
+        # f32 rounding; 1e-5 guards cross-backend (CPU vs GPU) rounding
+        # drift only
         assert sc == pytest.approx(hsc, abs=1e-5), (anc, des)
         # and the alignment attains the optimal score (independent scorer,
         # different op order -> plain f32 accumulation tolerance)
@@ -391,39 +391,6 @@ def test_cli_tri_large_pair_routes_through_batch_engine(tri_mg, tmp_path,
         else:
             seqs[name] += line  # fasta writer wraps at 60 cols
     assert seqs == {"1": h0, "2": h1}
-
-
-def test_triplet_pallas_forward_bit_exact(tri_mg):
-    """Pallas triplet forward (interpret mode) is bit-identical to the XLA
-    scan: boundary grid AND argmax-lane planes."""
-    import random
-
-    import jax.numpy as jnp
-
-    from coati_tpu import triplet_wavefront as tw
-    from coati_tpu.constants import CODONS61
-    from coati_tpu.kernels.triplet_pallas import triplet_rows_pallas
-    from coati_tpu.triplet_hmm import encode_triplet_pair
-
-    rng = random.Random(5)
-    pairs = [("CTCTGGATAGTG", "CTATAGTG")]
-    for _ in range(15):
-        anc = "".join(rng.choice(CODONS61) for _ in range(rng.randint(1, 10)))
-        des = "".join(rng.choice("ACGTN") for _ in range(rng.randint(1, 25)))
-        pairs.append((anc, des))
-    enc = [encode_triplet_pair(tri_mg, a, d) for a, d in pairs]
-    anc_p, des_p, _, _, ins_off, tables, n_cod = tw._pack_batch(
-        tri_mg, [e[0] for e in enc], [e[1] for e in enc]
-    )
-    aj, dj = jnp.asarray(anc_p), jnp.asarray(des_p)
-    io = jnp.asarray(ins_off)
-
-    g1, a1 = tw._triplet_rows(aj, dj, io, *tables, n_cod=n_cod)
-    g2, a2 = triplet_rows_pallas(
-        aj, dj, io, *tables, n_cod=n_cod, bc=4, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(g1), np.asarray(g2))
-    np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
 
 
 def test_triplet_long_segmented_matches_host(tri_mg):
@@ -494,77 +461,3 @@ def test_cli_routes_very_long_triplet_to_segmented(tri_mg, tmp_path,
     h0, h1, hsc = triplet_align(tri_mg, anc, des)
     assert obj["alignment"] == {"1": h0, "2": h1}
     assert obj["score"] == pytest.approx(hsc, abs=1e-4)
-
-
-def test_triplet_walk_pallas_bit_exact(tri_mg):
-    """The Pallas traceback walk (kernels/triplet_pallas.triplet_walk_pallas)
-    reproduces the XLA 6-phase walk EXACTLY — final (i, j, st) and every
-    run-encoded op row — in interpret mode, including multi-group scans,
-    insertion runs, and a ragged last group (S % K != 0)."""
-    import random
-
-    import jax.numpy as jnp
-    import numpy as np
-
-    from coati_tpu.kernels.triplet_pallas import triplet_walk_pallas
-    from coati_tpu.triplet_hmm import encode_triplet_pair
-    from coati_tpu.triplet_wavefront import (
-        _pack_batch,
-        _triplet_rows,
-        _triplet_walk_seg_xla,
-        triplet_terminal,
-    )
-
-    rng = random.Random(5)
-    from coati_tpu.constants import CODONS61
-
-    pairs = [
-        ("GCGACTGTTAGCAGC", "GCGACT" + "TTTTTGGGGGAAAAA" + "GTTAGCAGC"),
-        ("GCGACTGTTAGCAGCAAATTT", "GCGTTT"),
-    ]
-    for _ in range(6):
-        anc = "".join(rng.choice(CODONS61) for _ in range(rng.randint(3, 13)))
-        des = "".join(rng.choice("ACGT") for _ in range(rng.randint(2, 35)))
-        pairs.append((anc, des))
-
-    enc = [encode_triplet_pair(tri_mg, a, d) for a, d in pairs]
-    anc_p, des_p, lens_t, lens_m, ins_off, tables, n_cod = _pack_batch(
-        tri_mg, [e[0] for e in enc], [e[1] for e in enc]
-    )
-    logP64_t, me_t, gc_t = tables
-    aj = jnp.asarray(anc_p)
-    dj = jnp.asarray(des_p)
-    io = jnp.asarray(ins_off)
-    grid, amax = _triplet_rows(aj, dj, io, logP64_t, me_t, gc_t,
-                               n_cod=n_cod)
-    B = dj.shape[0]
-    bidx = jnp.arange(B, dtype=jnp.int32)
-    lt = jnp.asarray(lens_t)
-    lm = jnp.asarray(lens_m)
-    st0, _ = triplet_terminal(
-        grid[lt, 0, bidx], grid[lt, 1, bidx], grid[lt, 2, bidx], lm, gc_t
-    )
-    ops0 = jnp.zeros((6 * n_cod, B), jnp.int32)
-    state0 = (3 * lt, lm, st0.astype(jnp.int32), ops0)
-
-    xi, xj, xst, xops = _triplet_walk_seg_xla(
-        grid[:-1], amax[1:], aj, dj, io, jnp.int32(0), state0,
-        logP64_t, me_t, gc_t, S=n_cod,
-    )
-
-    cost_rows = jnp.transpose(logP64_t[aj], (1, 0, 2))
-    E4 = jnp.concatenate(
-        [
-            jnp.zeros((B, 4, 1), jnp.float32),
-            jnp.transpose(me_t[:4, dj], (1, 0, 2)),
-        ],
-        axis=2,
-    )
-    pi, pj, pst, prows = triplet_walk_pallas(
-        grid[:-1], amax[1:], cost_rows, E4, io, jnp.int32(0),
-        state0[0], state0[1], state0[2], gc_t, S=n_cod, interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
-    np.testing.assert_array_equal(np.asarray(pj), np.asarray(xj))
-    np.testing.assert_array_equal(np.asarray(pst), np.asarray(xst))
-    np.testing.assert_array_equal(np.asarray(prows), np.asarray(xops))
